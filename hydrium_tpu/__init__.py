@@ -1,11 +1,13 @@
-"""hydrium-tpu: a TPU-native JPEG XL (VarDCT, streaming) encoder.
+"""hydrium-tpu: a JPEG XL (VarDCT, streaming) encoder whose math runs as a
+JAX device pipeline on a GPU.
 
 A from-scratch reimplementation of the capabilities of Traneptora/hydrium
-(reference: /root/reference) designed TPU-first:
+(the reference), batched for an accelerator:
 
-- Device plane (JAX / Pallas): batched per-group kernels -- RGB->XYB color
-  transform, 8x8 forward DCT on the MXU, LF/HF quantization, context
-  modeling and hybrid-uint tokenization, per-cluster histograms.
+- Device plane (JAX, plain jax.numpy / lax compiled by XLA): batched
+  per-group stages -- RGB->XYB color transform, 8x8 forward DCT as two
+  float32 matmuls, LF/HF quantization, context modeling and hybrid-uint
+  tokenization, per-cluster histograms, packed transfer streams.
 - Host serialization plane (C++ / Python): bit-exact JPEG XL codestream
   assembly -- bit writer, prefix coding, rANS with alias tables, section/TOC
   layout.  Serial per stream, parallel across groups.

@@ -1,8 +1,8 @@
 """Image metadata and encoder configuration.
 
 Mirrors the capability surface of hydrium's `HYDImageMetadata`
-(reference: src/include/libhydrium/libhydrium.h:109-155) plus TPU-specific
-knobs (device batching, sharding mesh).
+(reference: src/include/libhydrium/libhydrium.h:109-155) plus device
+knobs (batching, sharding mesh).
 """
 
 from __future__ import annotations

@@ -43,12 +43,10 @@ ALPHABET = 64
 NCLASS = 9            # within-preset clusters (tables.hf_cluster_map)
 LF_CLASS = 9          # transport class for LF-residual hybrid tokens
 NROWS = 10            # 9 HF classes + the LF class
-# 12-bit cap (format v4; was 8): token quads then need two u32 lanes in
-# the MXU one-hot pack (4*12 <= 64 bits) and each decode LUT grows to
-# 4096 entries, but depth-12 package-merge sits within ~0.07 b/sym of
-# entropy on real token distributions where depth 8 left ~0.3 b/sym on
-# the wire (~0.6 MB per noisy 4K) -- and the wire, not the MXU, is this
-# rig's bottleneck.
+# 12-bit cap (format v4; was 8): each decode LUT grows to 4096 entries,
+# but depth-12 package-merge sits within ~0.07 b/sym of entropy on real
+# token distributions where depth 8 left ~0.3 b/sym in the transfer
+# (~0.6 MB per noisy 4K).
 MAX_LEN = 12
 LUT_BITS = 12
 

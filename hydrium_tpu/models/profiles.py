@@ -10,8 +10,8 @@ class Profile:
     """An encoder configuration point, passed to Encoder(profile=...).
 
     backend: math plane ("numpy" = bit-exact with the reference's
-    fixed-point/LUT arithmetic; "jax" = TPU device pipeline with direct
-    float math, equal-or-better PSNR).
+    fixed-point/LUT arithmetic; "jax" = the JAX device pipeline with
+    direct float math, equal-or-better PSNR).
     """
 
     name: str
@@ -21,7 +21,7 @@ class Profile:
 #: Byte-identical to the reference encoder for identical inputs.
 CONFORMANCE = Profile(name="conformance", backend="numpy")
 
-#: TPU production path.
+#: The JAX device pipeline (the production path).
 FAST = Profile(name="fast", backend="jax")
 
 _PROFILES = {p.name: p for p in (CONFORMANCE, FAST)}

@@ -1,3 +1,3 @@
-"""Device (JAX/Pallas) and host (numpy) compute kernels for the VarDCT
+"""Device (JAX) and host (numpy) compute stages for the VarDCT
 pipeline: color transform, DCT, quantization, context modeling,
 tokenization, histograms."""

@@ -3,7 +3,7 @@
 This is the *conformance* math path: every operation replicates the
 reference encoder's arithmetic (operation order, float32 width, integer
 truncation) so quantized integers -- and therefore bitstreams -- can be
-byte-compared against hydrium in differential tests.  The JAX/Pallas
+byte-compared against hydrium in differential tests.  The JAX
 device pipeline (ops/pipeline.py) is the production path; it is validated
 against this module.
 

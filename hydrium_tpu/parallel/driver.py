@@ -165,7 +165,7 @@ def encode_image_sharded(image: np.ndarray, mesh=None,
         # pulled with the same hint-sized-prefix + ranged-top-up
         # protocol as the single-device path, instead of materializing
         # the whole (worst-case-sized) combined buffer for every shard
-        # -- on a real pod that full fetch is ~45+ MB per 2048^2 LFG
+        # -- that full fetch is ~45+ MB per 2048^2 LFG
         shard_rows = {}
         for s in out["combined"].addressable_shards:
             j0 = s.index[0].start or 0

@@ -8,8 +8,8 @@ independent except for
 
 Design: shard LF groups across a 1-D `groups` mesh axis with shard_map;
 each device runs the full single-LFG pipeline (ops/pipeline.py) on its
-local LFGs; per-preset histograms are summed with an ICI psum so every
-host can serialize any preset's header.  This mirrors data-parallel
+local LFGs; per-preset histograms are summed with a psum so every host
+can serialize any preset's header.  This mirrors data-parallel
 batching, not a translation of any reference threading (the reference
 has none: README.md:8).
 """
@@ -27,8 +27,14 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..ops import pipeline, tables
 
 
-def make_mesh(n_devices: int | None = None, axis: str = "groups") -> Mesh:
-    devices = jax.devices()[: n_devices or len(jax.devices())]
+def make_mesh(n_devices: int | None = None, axis: str = "groups",
+              devices=None) -> Mesh:
+    """A flat 1-D mesh over the first n_devices of `devices` (default:
+    jax.devices()).  Every card reaches every other at the same rate
+    (NVLink all-to-all), so the mesh follows the algorithm alone."""
+    if devices is None:
+        devices = jax.devices()
+    devices = list(devices)[: n_devices or len(devices)]
     return Mesh(np.array(devices), (axis,))
 
 

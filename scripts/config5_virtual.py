@@ -141,7 +141,8 @@ def main() -> int:
         multi_path = os.path.join(td, "multi.jxl")
         env = dict(os.environ)
         env.pop("XLA_FLAGS", None)
-        env["JAX_PLATFORMS"] = ""
+        # CPU workers: they must never open (and reserve) a GPU
+        env["JAX_PLATFORMS"] = "cpu"
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--child",
              str(port), str(i), "2", str(args.size), multi_path],
@@ -175,8 +176,8 @@ def main() -> int:
             "single": sstats,
             "note": ("2-process jax.distributed CPU cluster, "
                      "lazy strip input, spooled sections; wall times are "
-                     "CPU-mesh times (no TPU), the point is scale + "
-                     "byte equality + bounded RSS"),
+                     "CPU times, the point is scale + byte equality + "
+                     "bounded RSS"),
         }
         if args.decode:
             # round-trip through the reference decoder (libjxl): decode

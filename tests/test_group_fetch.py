@@ -1,12 +1,12 @@
 """Frame-level single fetch (encoder._FetchGroup / group_fetch_payloads):
-one combined device buffer + one round trip must be a pure transport
+one combined device buffer + one read must be a pure transport
 change -- per-payload (aux, words) identical to the individual
 fetch_packed_payload protocol, anomalies cascade to the individual
 path, and end-to-end bytes never change.
 
 Reference contrast: the reference's one-frame mode accumulates all
 groups and flushes once (encoder.c:752-1003); the group fetch is the
-remote-TPU analogue of that single flush.
+device-transfer analogue of that single flush.
 """
 
 import os

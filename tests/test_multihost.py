@@ -110,9 +110,7 @@ def test_with_retry_recovers_and_raises():
 @pytest.mark.slow
 @pytest.mark.skipif(os.environ.get("HYDRIUM_SCALE_TESTS") != "1",
                     reason="BASELINE config-5 scale proof takes ~4 min "
-                           "of CPU; set HYDRIUM_SCALE_TESTS=1 (the same "
-                           "run feeds ARTIFACTS.json via "
-                           "scripts/scale_artifacts.py)")
+                           "of CPU; set HYDRIUM_SCALE_TESTS=1")
 def test_config5_virtual_scale():
     """BASELINE config 5 as written (VERDICT round-2 item 5): >= 16384^2
     through encode_image_multihost on a real 2-process jax.distributed
@@ -138,9 +136,7 @@ def test_config5_virtual_scale():
 
 @pytest.mark.skipif(os.environ.get("HYDRIUM_GIGAPIXEL_TESTS") != "1",
                     reason="gigapixel config-5 proof takes ~25 min of "
-                           "CPU; set HYDRIUM_GIGAPIXEL_TESTS=1 (the "
-                           "same run feeds ARTIFACTS.json "
-                           "config5_gigapixel)")
+                           "CPU; set HYDRIUM_GIGAPIXEL_TESTS=1")
 def test_config5_gigapixel():
     """BASELINE config 5 at its LITERALLY specified size (VERDICT
     round-4 item 3): 32768^2 = 2^30 px (1.07 Gpix) through a real

@@ -74,16 +74,14 @@ def _encode_jax(img, force_unpacked=False):
                          linear_light=True)
     enc = Encoder(meta, backend="jax")
     if force_unpacked:
-        orig = enc_mod._fetch_prefix
-
-        def boom(*a, **k):
-            raise RuntimeError("forced")
-
-        enc_mod._fetch_prefix = boom
+        # a payload that never parses sends every LF group down the
+        # unpacked path
+        orig = enc_mod._parse_packed
+        enc_mod._parse_packed = lambda *a, **k: None
         try:
             enc.send_tile(img, 0, 0, sample_fmt=SampleFormat.FLOAT32)
         finally:
-            enc_mod._fetch_prefix = orig
+            enc_mod._parse_packed = orig
     else:
         enc.send_tile(img, 0, 0, sample_fmt=SampleFormat.FLOAT32)
     return enc.take_output(), enc.stats

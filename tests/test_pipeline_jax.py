@@ -276,135 +276,17 @@ def test_analytic_clusters_match_gather(num_presets):
     assert (clusters == expect).all()
 
 
-@pytest.mark.parametrize("lanes,max_bits,ch", [
-    (1, 32, 64),      # token-quad shape (fields <= 32 bits)
-    (2, 48, 32),      # residue-pair shape (two u32 lanes)
-    (1, 32, 128),     # field count not divisible by ch (padding path)
-])
-def test_bitpack_mxu_equals_scatter(lanes, max_bits, ch):
-    """The chunked one-hot MXU bitpack (the TPU production path) must be
-    bit-identical to the scatter _bitpack/_bitpack64 (the CPU path and
-    format v2's bit-contiguous definition, still used for LF), across zero-width fields, full-width
-    fields, chunk-boundary carries, and word-aligned chunk ends."""
-    rng = np.random.default_rng(lanes * 1000 + ch)
-    F = 5 * ch + (17 if ch == 128 else 0)
-    nbits = rng.integers(0, max_bits + 1, F).astype(np.int32)
-    nbits[rng.random(F) < 0.3] = 0          # common: empty slots
-    nbits[0] = max_bits                     # full-width first field
-    nbits[ch - 1] = 32                      # word-aligned chunk end bait
-    total64 = rng.integers(0, 1 << 62, F, dtype=np.uint64)
-    mask = (np.uint64(1) << nbits.astype(np.uint64)) - np.uint64(1)
-    vals = total64 & mask
-    lo = (vals & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    hi = (vals >> np.uint64(32)).astype(np.uint32)
-    cap = int((nbits.sum() + 31) // 32) + 2
-
-    if lanes == 1:
-        ref_w, ref_t = pipeline._bitpack(jnp.asarray(lo),
-                                         jnp.asarray(nbits), cap)
-        got_w, got_t, ok = pipeline._bitpack_mxu(
-            (jnp.asarray(lo),), jnp.asarray(nbits), cap, ch=ch,
-            max_field_bits=max_bits)
-    else:
-        ref_w, ref_t = pipeline._bitpack64(jnp.asarray(lo), jnp.asarray(hi),
-                                           jnp.asarray(nbits), cap)
-        got_w, got_t, ok = pipeline._bitpack_mxu(
-            (jnp.asarray(lo), jnp.asarray(hi)), jnp.asarray(nbits), cap,
-            ch=ch, max_field_bits=max_bits)
-    assert bool(ok)
-    assert int(got_t) == int(ref_t) == int(nbits.sum())
-    np.testing.assert_array_equal(np.asarray(got_w), np.asarray(ref_w))
-
-
-def test_overwrite_compact_levels_exact():
-    """_overwrite_compact must place chunks identically for every
-    (pre_levels, unroll) configuration scripts/compact_sweep.py times
-    on chip -- the sweep may change the production defaults, so the
-    whole space is pinned here."""
-    rng = np.random.default_rng(41)
-    R, OW = 23, 48                        # odd R exercises the pad path
-    nw = rng.integers(0, OW + 1, R).astype(np.int32)
-    ch_np = rng.integers(0, 1 << 32, (R, OW),
-                         dtype=np.uint64).astype(np.uint32)
-    # contract: words past each chunk's nw are ZERO (the pack kernels
-    # guarantee it; the pre-level OR-merges rely on it)
-    ch_np[np.arange(OW)[None, :] >= nw[:, None]] = 0
-    chunks = jnp.asarray(ch_np)
-    total = int(nw.sum())
-    num_words = total + 7
-    # independent oracle: plain numpy concatenation.  Words past the
-    # total are garbage by contract (callers never read past the
-    # stream's total bits), so only the defined prefix is compared.
-    ref = np.zeros(total, np.uint32)
-    pos = 0
-    for r in range(R):
-        ref[pos:pos + nw[r]] = ch_np[r, :nw[r]]
-        pos += nw[r]
-    for pre in (0, 1, 2, 3, 4, 5):
-        for unroll in (1, 4, 8):
-            got = np.asarray(pipeline._overwrite_compact(
-                chunks, jnp.asarray(nw), num_words, pre_levels=pre,
-                unroll=unroll))
-            np.testing.assert_array_equal(got[:total], ref,
-                                          err_msg=(pre, unroll))
-
-
-def test_bitpack_mxu_overflow_flag():
-    """A chunk packed denser than max_field_bits*ch must drop ok."""
-    ch = 32
-    nbits = np.full(ch, 48, np.int32)       # 48 > 24 budget everywhere
-    lo = np.full(ch, 0xDEADBEEF, np.uint32)
-    hi = np.full(ch, 0xFFFF, np.uint32)
-    _, _, ok = pipeline._bitpack_mxu(
-        (jnp.asarray(lo), jnp.asarray(hi)), jnp.asarray(nbits),
-        ch * 2, ch=ch, max_field_bits=24)
-    assert not bool(ok)
-
-
-@pytest.mark.parametrize("kind", ["tok", "res"])
-def test_bitpack_v3_quad_equals_scatter(kind):
-    """The quad-combined MXU chunk pack (production TPU form of
-    _bitpack_v3) must be bit-identical to the field-level scatter form
-    (the CPU backend), at the production chunk geometries."""
-    rng = np.random.default_rng(99 if kind == "tok" else 100)
-    if kind == "tok":
-        ch, ow, maxb = pipeline.TOK_CHUNK, pipeline.TOK_OW, 8
-        F = 2 * ch                       # two chunks
-        nbits = rng.integers(1, 9, F).astype(np.int32)
-    else:
-        ch, ow, maxb = pipeline.RES_CHUNK, pipeline.RES_OW_WIDE, 30
-        F = 2 * ch
-        nbits = rng.integers(0, 27, F).astype(np.int32)
-        nbits[rng.random(F) < 0.4] = 0
-    nbits[ch - 1] = min(maxb, 32)        # chunk-boundary bait
-    vals = (rng.integers(0, 1 << 31, F).astype(np.uint32)
-            & ((np.uint32(1) << nbits.astype(np.uint32)) - np.uint32(1)))
-    cap = int((nbits.sum() + 31) // 32) + ow + 2
-    ref_w, ref_nw, ref_cb = pipeline._bitpack_v3(
-        jnp.asarray(vals), jnp.asarray(nbits), ch, ow, cap, False,
-        max_field_bits=maxb)
-    got_w, got_nw, got_cb = pipeline._bitpack_v3(
-        jnp.asarray(vals), jnp.asarray(nbits), ch, ow, cap, True,
-        max_field_bits=maxb)
-    np.testing.assert_array_equal(np.asarray(ref_cb), np.asarray(got_cb))
-    np.testing.assert_array_equal(np.asarray(ref_nw), np.asarray(got_nw))
-    np.testing.assert_array_equal(np.asarray(ref_w), np.asarray(got_w))
-
-
-def test_mxu_packed_payload_and_wide_retry(monkeypatch):
-    """The TPU (MXU pack) branch of encode_lfg_packed must produce a
-    combined payload byte-identical to the CPU scatter branch, and a
-    residue stream denser than the fast 12 b/slot budget must set the
-    retryable ok word (2) narrow and pack identically wide.  The branch
-    is selected by jax.default_backend() at trace time (not part of the
-    jit cache key), so this test patches it and clears the caches."""
-    import jax
+def test_packed_payload_wide_retry():
+    """A residue stream denser than the fast 12 b/slot budget must set
+    the retryable ok word (2) on the narrow executable and pack validly
+    on the wide one; so must a single residue field wider than
+    RES_CAP_FAST bits even when the aggregate chunk budget is fine."""
     from hydrium_tpu.jxl.tokcode import TokenCodec
 
     cm = tables.hf_cluster_map(1)
     lens, codes, _ = TokenCodec().tables()
     kw = dict(buf_h=256, buf_w=256, linear_light=False, num_clusters=9,
-              sample_kind="float32", use_pallas=False, tok_classes=9)
+              sample_kind="float32", tok_classes=9)
 
     def call(img, **extra):
         return np.asarray(pipeline.encode_lfg_packed(
@@ -412,38 +294,17 @@ def test_mxu_packed_payload_and_wide_retry(monkeypatch):
             jnp.asarray(cm), jnp.asarray(lens), jnp.asarray(codes),
             **kw, **extra)["combined"])
 
-    def clear():
-        pipeline.encode_lfg_packed.clear_cache()
-        pipeline.encode_lfg.clear_cache()
-
     rng = np.random.default_rng(7)
     base = rng.random((256, 256, 3)).astype(np.float32) * 2 - 1
     mild = base * 100.0          # ~8 b/slot residues: fits the budget
     dense = base * 1e4           # ~14 b/slot: needs the wide executable
 
-    ref_mild = call(mild)
-    assert ref_mild[0] == 1
-    assert call(dense)[0] == 2       # retryable on the CPU branch too
-    ref_dense = call(dense, wide_residues=True)
-    assert ref_dense[0] == 1
+    assert call(mild)[0] == 1
+    assert call(dense)[0] == 2
+    assert call(dense, wide_residues=True)[0] == 1
 
-    # a single >RES_CAP_FAST-bit residue field (token still < 64) must
-    # be retryable even when the aggregate chunk budget is fine
     spike = mild.copy()
     spike[0:8, 0:8, :] = 0.0
     spike[0, 0, 0] = 2.0e5           # one huge DCT coeff -> ~18b residue
-    got = call(spike)
-    assert got[0] == 2
+    assert call(spike)[0] == 2
     assert call(spike, wide_residues=True)[0] == 1
-
-    try:
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        clear()
-        np.testing.assert_array_equal(call(mild), ref_mild)
-        narrow = call(dense)
-        assert narrow[0] == 2                       # retryable, not ok
-        np.testing.assert_array_equal(call(dense, wide_residues=True),
-                                      ref_dense)
-    finally:
-        monkeypatch.undo()
-        clear()
